@@ -1,7 +1,7 @@
 // Reference-execution parity harness: drives the GAUSS reference's
 // exported analyses (compiled in place from /root/reference/src via
 // the Rcpp facade in Rcpp.h) on bgzf panels and emits TSV on stdout
-// for tests/test_ref_harness.py to diff against gauss_tpu.
+// for tests/test_ref_harness.py to diff against gauss_jax.
 // Reference entry points:
 //   dist           /root/reference/src/dist.cpp:30
 //   distmix        /root/reference/src/distmix.cpp:30

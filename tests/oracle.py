@@ -3,7 +3,7 @@
 Deliberately written as literal, slow per-pair loops mirroring the
 reference C++ math (CalCor src/util.cpp:49-70, CalWgtCov
 src/util.cpp:103-124, per-string CalCor src/util.cpp:153-169, run_dist
-src/dist.cpp:129-227) so the vectorized TPU kernels have an independent
+src/dist.cpp:129-227) so the vectorized device kernels have an independent
 check.
 """
 

@@ -4,9 +4,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import gauss_tpu
-from gauss_tpu.utils import testing as gtest
-from gauss_tpu.utils.qp import solve_simplex_qp
+import gauss_jax
+from gauss_jax.utils import testing as gtest
+from gauss_jax.utils.qp import solve_simplex_qp
 
 import oracle
 
@@ -22,7 +22,7 @@ def af_input(synpanel, tmp_path_factory):
 
 
 def test_afmix_recovers_mixture(synpanel, af_input):
-    res = gauss_tpu.afmix(af_input, synpanel.files.index_file,
+    res = gauss_jax.afmix(af_input, synpanel.files.index_file,
                           synpanel.files.data_file,
                           synpanel.files.pop_desc_file, interval=8)
     assert set(res.columns) == {"sup.pop", "pop", "wgt"}
@@ -35,7 +35,7 @@ def test_afmix_recovers_mixture(synpanel, af_input):
 
 
 def test_cpw2_recovers_mixture(synpanel, af_input):
-    res = gauss_tpu.cpw2(af_input, synpanel.files.index_file,
+    res = gauss_jax.cpw2(af_input, synpanel.files.index_file,
                          synpanel.files.data_file,
                          synpanel.files.pop_desc_file, interval=8)
     assert set(res.columns) == {"pop", "wgt"}
@@ -46,7 +46,7 @@ def test_cpw2_recovers_mixture(synpanel, af_input):
 
 def test_prep_zmix_pair_structure(synpanel, gwas_input):
     path, truth = gwas_input
-    mat = gauss_tpu.prep_zmix(path, synpanel.files.index_file,
+    mat = gauss_jax.prep_zmix(path, synpanel.files.index_file,
                               synpanel.files.data_file,
                               synpanel.files.pop_desc_file, interval=7)
     n_meas = len(truth)
@@ -63,7 +63,7 @@ def test_prep_zmix_pair_structure(synpanel, gwas_input):
 
 def test_prep_zmix_corr_matches_oracle(synpanel, gwas_input):
     path, truth = gwas_input
-    mat = gauss_tpu.prep_zmix(path, synpanel.files.index_file,
+    mat = gauss_jax.prep_zmix(path, synpanel.files.index_file,
                               synpanel.files.data_file,
                               synpanel.files.pop_desc_file, interval=29)
     # recompute pair (0,1) per-pop correlations from fixture genotypes
@@ -83,20 +83,20 @@ def test_prep_zmix_variants_shapes(synpanel, gwas_input):
     P = synpanel.desc.num_pops
     args = (path, synpanel.files.index_file, synpanel.files.data_file,
             synpanel.files.pop_desc_file)
-    m2 = gauss_tpu.prep_zmix2(*args, interval=13, offset=3)
+    m2 = gauss_jax.prep_zmix2(*args, interval=13, offset=3)
     n = len(truth)
     n2 = sum(1 for i in range(0, n, 13) if i + 3 < n)
     assert m2.shape == (n2, 1 + P)
-    m3 = gauss_tpu.prep_zmix3(*args, interval=11, steps=4)
+    m3 = gauss_jax.prep_zmix3(*args, interval=11, steps=4)
     nsub = len(range(0, n, 11))
     n3 = sum(min(4, nsub - i - 1) for i in range(nsub))
     assert m3.shape == (n3, 1 + P)
-    m4 = gauss_tpu.prep_zmix4(*args, interval=13, offset=3)
+    m4 = gauss_jax.prep_zmix4(*args, interval=13, offset=3)
     assert m4.shape[1] == 2 + P
     assert set(np.unique(m4[:, 0])) <= set(range(13))
-    m5 = gauss_tpu.prep_zmix5(*args, percentile=0.8, interval=2)
+    m5 = gauss_jax.prep_zmix5(*args, percentile=0.8, interval=2)
     assert m5.shape[1] == 1 + P
-    m5s = gauss_tpu.prep_zmix5_sup(*args, percentile=0.8, interval=2)
+    m5s = gauss_jax.prep_zmix5_sup(*args, percentile=0.8, interval=2)
     assert m5s.shape[1] == 1 + len(synpanel.desc.sup_pop_order())
 
 
@@ -151,7 +151,7 @@ def test_zmix_runs_and_recovers_signal(synpanel, tmp_path):
         for i, r in synpanel.index_df.iterrows():
             fh.write(f"{r.rsid} {r.chr} {r.bp} {r.a1} {r.a2} {z[i]:.8f}\n")
 
-    res = gauss_tpu.zmix(str(path), synpanel.files.index_file,
+    res = gauss_jax.zmix(str(path), synpanel.files.index_file,
                          synpanel.files.data_file,
                          synpanel.files.pop_desc_file,
                          percentile=0.5, interval=1)
@@ -161,7 +161,7 @@ def test_zmix_runs_and_recovers_signal(synpanel, tmp_path):
     # dominant populations should get the bulk of the weight
     assert w["AAA"] + w["EEE"] > 0.5
 
-    res_sup = gauss_tpu.zmix(str(path), synpanel.files.index_file,
+    res_sup = gauss_jax.zmix(str(path), synpanel.files.index_file,
                              synpanel.files.data_file,
                              synpanel.files.pop_desc_file,
                              percentile=0.5, interval=1,
@@ -176,16 +176,16 @@ def test_zmix_runs_and_recovers_signal(synpanel, tmp_path):
 
 @pytest.fixture(scope="module")
 def anc_store(synpanel):
-    from gauss_tpu.models.genome import PanelStore
+    from gauss_jax.models.genome import PanelStore
     return PanelStore.from_bgzf(synpanel.files)
 
 
 def test_afmix_cpw2_store_parity(synpanel, af_input, anc_store):
-    from gauss_tpu.io import readers
-    from gauss_tpu.models import ancestry
+    from gauss_jax.io import readers
+    from gauss_jax.models import ancestry
     inp = readers.read_input_af(af_input)
-    for file_fn, store_fn in ((gauss_tpu.afmix, ancestry.afmix_store),
-                              (gauss_tpu.cpw2, ancestry.cpw2_store)):
+    for file_fn, store_fn in ((gauss_jax.afmix, ancestry.afmix_store),
+                              (gauss_jax.cpw2, ancestry.cpw2_store)):
         ref = file_fn(af_input, synpanel.files.index_file,
                       synpanel.files.data_file,
                       synpanel.files.pop_desc_file, interval=25)
@@ -195,12 +195,12 @@ def test_afmix_cpw2_store_parity(synpanel, af_input, anc_store):
 
 
 def test_prep_zmix5_and_zmix_store_parity(synpanel, gwas_input, anc_store):
-    from gauss_tpu.io import readers
-    from gauss_tpu.models import ancestry
+    from gauss_jax.io import readers
+    from gauss_jax.models import ancestry
     path, _ = gwas_input
     inp = readers.read_input_z(path, all_snps=True)
 
-    ref = gauss_tpu.prep_zmix5(path, synpanel.files.index_file,
+    ref = gauss_jax.prep_zmix5(path, synpanel.files.index_file,
                                synpanel.files.data_file,
                                synpanel.files.pop_desc_file,
                                percentile=0.5, interval=2)
@@ -208,7 +208,7 @@ def test_prep_zmix5_and_zmix_store_parity(synpanel, gwas_input, anc_store):
                                     interval=2)
     np.testing.assert_allclose(got, ref, rtol=0, atol=0)
 
-    refs = gauss_tpu.prep_zmix5_sup(path, synpanel.files.index_file,
+    refs = gauss_jax.prep_zmix5_sup(path, synpanel.files.index_file,
                                     synpanel.files.data_file,
                                     synpanel.files.pop_desc_file,
                                     percentile=0.5, interval=2)
@@ -216,7 +216,7 @@ def test_prep_zmix5_and_zmix_store_parity(synpanel, gwas_input, anc_store):
                                      interval=2, sup_level=True)
     np.testing.assert_allclose(gots, refs, rtol=0, atol=0)
 
-    refz = gauss_tpu.zmix(path, synpanel.files.index_file,
+    refz = gauss_jax.zmix(path, synpanel.files.index_file,
                           synpanel.files.data_file,
                           synpanel.files.pop_desc_file,
                           percentile=0.5, interval=2)
@@ -229,9 +229,9 @@ def test_prep_zmix5_mesh_matches_single_device(gwas_input, anc_store):
     """Mesh-sharded pair correlations (AIM rows over the window axis,
     subjects psum'd) are bit-identical to the single-device path: all
     sufficient statistics are exact integers at any shard count."""
-    from gauss_tpu.io import readers
-    from gauss_tpu.models import ancestry
-    from gauss_tpu.parallel.mesh import make_mesh
+    from gauss_jax.io import readers
+    from gauss_jax.models import ancestry
+    from gauss_jax.parallel.mesh import make_mesh
     path, _ = gwas_input
     inp = readers.read_input_z(path, all_snps=True)
     mesh = make_mesh(2, 4)
@@ -253,8 +253,8 @@ def test_prep_zmix5_mesh_matches_single_device(gwas_input, anc_store):
 def test_engine_ancestry_methods(synpanel, af_input, anc_store):
     """GenomeEngine delegates: one store serves afmix AND zmix without a
     second decode."""
-    from gauss_tpu.io import readers
-    from gauss_tpu.models.genome import GenomeEngine
+    from gauss_jax.io import readers
+    from gauss_jax.models.genome import GenomeEngine
     eng = GenomeEngine(anc_store)
     inp = readers.read_input_af(af_input)
     res = eng.afmix(inp, interval=25)
@@ -358,7 +358,7 @@ def test_prep_zmix2_values(synpanel, gwas_input):
     i += interval over ALL measured SNPs, pair (i, i+offset))."""
     path, truth = gwas_input
     interval, offset = 13, 3
-    mat = gauss_tpu.prep_zmix2(path, synpanel.files.index_file,
+    mat = gauss_jax.prep_zmix2(path, synpanel.files.index_file,
                                synpanel.files.data_file,
                                synpanel.files.pop_desc_file,
                                interval=interval, offset=offset)
@@ -377,7 +377,7 @@ def test_prep_zmix3_values(synpanel, gwas_input):
     in (i, then j) order)."""
     path, truth = gwas_input
     interval, steps = 11, 4
-    mat = gauss_tpu.prep_zmix3(path, synpanel.files.index_file,
+    mat = gauss_jax.prep_zmix3(path, synpanel.files.index_file,
                                synpanel.files.data_file,
                                synpanel.files.pop_desc_file,
                                interval=interval, steps=steps)
@@ -400,7 +400,7 @@ def test_prep_zmix4_values(synpanel, gwas_input):
     i = h, h+interval, ...; row = [h, z_i z_j, r_pop...])."""
     path, truth = gwas_input
     interval, offset = 13, 3
-    mat = gauss_tpu.prep_zmix4(path, synpanel.files.index_file,
+    mat = gauss_jax.prep_zmix4(path, synpanel.files.index_file,
                                synpanel.files.data_file,
                                synpanel.files.pop_desc_file,
                                interval=interval, offset=offset)

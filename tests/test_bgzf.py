@@ -5,7 +5,7 @@ import gzip
 import numpy as np
 import pytest
 
-from gauss_tpu.io.bgzf import BgzfReader, BgzfWriter, is_bgzf, make_vaddr
+from gauss_jax.io.bgzf import BgzfReader, BgzfWriter, is_bgzf, make_vaddr
 
 
 def test_roundtrip_lines(tmp_path):

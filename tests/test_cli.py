@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from gauss_tpu import cli
+from gauss_jax import cli
 
 
 @pytest.fixture(scope="module")
@@ -167,7 +167,7 @@ def test_cli_panel_cache_and_region(synpanel, gwas_input, region, tmp_path):
 
 def test_cli_genome_jepeg_and_dist_modes(synpanel, gwas_input, region,
                                          tmp_path):
-    from gauss_tpu.utils import testing as gtest
+    from gauss_jax.utils import testing as gtest
     path, _ = gwas_input
     lo, hi = region
     annot = tmp_path / "annot.txt"
@@ -212,7 +212,7 @@ def test_cli_genome_all_failed_exits_nonzero(synpanel, gwas_input, region,
     """A run where EVERY chunk fails must exit non-zero with the first
     error on stderr, not write an empty TSV and exit 0 (reference
     analog: fail-fast Rcpp::stop, src/dist.cpp:145-151)."""
-    from gauss_tpu.models import genome as genome_mod
+    from gauss_jax.models import genome as genome_mod
 
     def _boom(self, *a, **k):
         raise RuntimeError("synthetic chunk failure")
@@ -246,9 +246,9 @@ def test_runner_collect_warns_on_missing_shard(synpanel, gwas_input,
     """A done chunk whose parquet shard vanished must warn, not
     silently shorten the output."""
     import os
-    from gauss_tpu.io import readers
-    from gauss_tpu.models.genome import GenomeEngine, PanelStore
-    from gauss_tpu.models.runner import GenomeRunner
+    from gauss_jax.io import readers
+    from gauss_jax.models.genome import GenomeEngine, PanelStore
+    from gauss_jax.models.runner import GenomeRunner
     path, _ = gwas_input
     lo, hi = region
     store = PanelStore.from_bgzf(synpanel.files)

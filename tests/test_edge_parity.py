@@ -7,12 +7,12 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import gauss_tpu
-from gauss_tpu.config import PanelFiles
-from gauss_tpu.io import readers
-from gauss_tpu.io.panel import write_panel
-from gauss_tpu.io.readers import PopDesc
-from gauss_tpu.models.genome import GenomeEngine, PanelStore
+import gauss_jax
+from gauss_jax.config import PanelFiles
+from gauss_jax.io import readers
+from gauss_jax.io.panel import write_panel
+from gauss_jax.io.readers import PopDesc
+from gauss_jax.models.genome import GenomeEngine, PanelStore
 
 
 N_SNPS = 160
@@ -92,7 +92,7 @@ def test_monomorphic_within_pop_parity(edge_panel, tmp_path):
                                a["z"].to_numpy()[imp],
                                rtol=2e-3, atol=2e-4)
     # cross-check vs the per-call reference-semantics path
-    ref = gauss_tpu.distmix(22, lo, hi, STEP * 30,
+    ref = gauss_jax.distmix(22, lo, hi, STEP * 30,
                             pd.DataFrame({"pop": list(WGT),
                                           "wgt": list(WGT.values())}),
                             path, files.index_file, files.data_file,
@@ -111,11 +111,11 @@ def test_single_pop_weights_match_dist(edge_panel, tmp_path):
     path = _z_input(index_df, measured, tmp_path)
     lo, hi = BP0 + 30 * STEP, BP0 + 120 * STEP
     wing = 30 * STEP
-    mix = gauss_tpu.distmix(22, lo, hi, wing,
+    mix = gauss_jax.distmix(22, lo, hi, wing,
                             pd.DataFrame({"pop": ["PPB"], "wgt": [1.0]}),
                             path, files.index_file, files.data_file,
                             files.pop_desc_file)
-    hom = gauss_tpu.dist(22, lo, hi, wing, "PPB", path,
+    hom = gauss_jax.dist(22, lo, hi, wing, "PPB", path,
                          files.index_file, files.data_file,
                          files.pop_desc_file)
     m = mix.merge(hom, on=["rsid", "bp"], suffixes=("_m", "_h"))
@@ -152,7 +152,7 @@ def test_min_count_boundary(edge_panel, tmp_path):
     hi_fail = BP0 + 20 * STEP     # rows 11..20 = 10 unmeasured
     hi_ok = BP0 + 21 * STEP       # rows 11..21 = 11 unmeasured
     with pytest.raises(ValueError, match="[Nn]ot enough|insufficient"):
-        gauss_tpu.distmix(22, lo, hi_fail, wing,
+        gauss_jax.distmix(22, lo, hi_fail, wing,
                           pd.DataFrame({"pop": list(WGT),
                                         "wgt": list(WGT.values())}),
                           path, files.index_file, files.data_file,
@@ -164,7 +164,7 @@ def test_min_count_boundary(edge_panel, tmp_path):
                                  wing_size=wing)) == 0
 
     # one more unmeasured row: both paths succeed and agree
-    ref = gauss_tpu.distmix(22, lo, hi_ok, wing,
+    ref = gauss_jax.distmix(22, lo, hi_ok, wing,
                             pd.DataFrame({"pop": list(WGT),
                                           "wgt": list(WGT.values())}),
                             path, files.index_file, files.data_file,
@@ -181,7 +181,7 @@ def test_min_count_boundary(edge_panel, tmp_path):
     lo2, hi2 = BP0, BP0 + 30 * STEP   # ext window = pred window
     m10 = _z_input(index_df, np.arange(0, 10), tmp_path, seed=6)
     with pytest.raises(ValueError, match="[Nn]ot enough|insufficient"):
-        gauss_tpu.distmix(22, lo2, hi2, short_wing,
+        gauss_jax.distmix(22, lo2, hi2, short_wing,
                           pd.DataFrame({"pop": list(WGT),
                                         "wgt": list(WGT.values())}),
                           m10, files.index_file, files.data_file,
@@ -201,7 +201,7 @@ def test_window_with_zero_unmeasured(edge_panel, tmp_path):
     store = PanelStore.from_bgzf(files)
     lo, hi = BP0, BP0 + STEP * (N_SNPS - 1)
     with pytest.raises(ValueError, match="[Nn]ot enough|insufficient"):
-        gauss_tpu.distmix(22, lo, hi, STEP * 10,
+        gauss_jax.distmix(22, lo, hi, STEP * 10,
                           pd.DataFrame({"pop": list(WGT),
                                         "wgt": list(WGT.values())}),
                           path, files.index_file, files.data_file,
@@ -221,7 +221,7 @@ def test_zero_variance_nan_propagation(edge_panel, tmp_path):
     (core/ldkernels.py silences the incidental numpy warning)."""
     import warnings
 
-    from gauss_tpu.core import ldkernels
+    from gauss_jax.core import ldkernels
 
     files, index_df, G, desc = edge_panel
     Gz = G[:12].copy()

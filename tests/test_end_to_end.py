@@ -5,10 +5,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import gauss_tpu
-from gauss_tpu.models import pipeline
-from gauss_tpu.config import PanelFiles
-from gauss_tpu.io import readers
+import gauss_jax
+from gauss_jax.models import pipeline
+from gauss_jax.config import PanelFiles
+from gauss_jax.io import readers
 
 import oracle
 
@@ -25,7 +25,7 @@ def region(synpanel):
 def test_compute_ld_matches_oracle(synpanel, gwas_input, region):
     path, truth = gwas_input
     lo, hi = region
-    res = gauss_tpu.compute_ld(
+    res = gauss_jax.compute_ld(
         22, lo, hi, POP_WGT, path,
         synpanel.files.index_file, synpanel.files.data_file,
         synpanel.files.pop_desc_file)
@@ -59,7 +59,7 @@ def test_dist_matches_oracle(synpanel, gwas_input, region):
     p_lo = lo + (hi - lo) // 3
     p_hi = lo + 2 * (hi - lo) // 3
     wing = hi - lo
-    res = gauss_tpu.dist(
+    res = gauss_jax.dist(
         22, p_lo, p_hi, wing, "EUR", path,
         synpanel.files.index_file, synpanel.files.data_file,
         synpanel.files.pop_desc_file, af1_cutoff=0.01)
@@ -109,7 +109,7 @@ def test_distmix_matches_oracle(synpanel, gwas_input, region):
     p_lo = lo + (hi - lo) // 3
     p_hi = lo + 2 * (hi - lo) // 3
     wing = hi - lo
-    res = gauss_tpu.distmix(
+    res = gauss_jax.distmix(
         22, p_lo, p_hi, wing, POP_WGT, path,
         synpanel.files.index_file, synpanel.files.data_file,
         synpanel.files.pop_desc_file, af1_cutoff=0.01)
@@ -145,6 +145,6 @@ def test_dist_insufficient_snps_raises(synpanel, gwas_input, region):
     path, _ = gwas_input
     lo, hi = region
     with pytest.raises(ValueError, match="Not enough"):
-        gauss_tpu.dist(22, lo, lo + 2000, 1000, "EUR", path,
+        gauss_jax.dist(22, lo, lo + 2000, 1000, "EUR", path,
                        synpanel.files.index_file, synpanel.files.data_file,
                        synpanel.files.pop_desc_file)

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 from scipy import stats as st
 
-import gauss_tpu
-from gauss_tpu.utils.special import bh_adjust
+import gauss_jax
+from gauss_jax.utils.special import bh_adjust
 
 
 def test_bh_matches_scipy():
@@ -19,7 +19,7 @@ def test_bh_matches_scipy():
 def test_fiqt_literal_formula():
     rng = np.random.default_rng(1)
     z = np.concatenate([rng.standard_normal(500) * 2, [45.0, -45.0]])
-    out = gauss_tpu.fiqt(z)
+    out = gauss_jax.fiqt(z)
     # literal R translation
     pv = np.maximum(2 * st.norm.sf(np.abs(z)), 1e-300)
     adj = st.false_discovery_control(pv, method="bh")
@@ -32,7 +32,7 @@ def test_fiqt_literal_formula():
 def test_fiqt_shrinks_and_preserves_sign():
     rng = np.random.default_rng(2)
     z = rng.standard_normal(300) * 3
-    out = gauss_tpu.fiqt(z)
+    out = gauss_jax.fiqt(z)
     assert (np.abs(out) <= np.abs(z) + 1e-12).all()
     nz = z != 0
     assert (np.sign(out[nz]) == np.sign(z[nz])).all() or \
@@ -41,7 +41,7 @@ def test_fiqt_shrinks_and_preserves_sign():
 
 def test_fiqt_extreme_passthrough():
     z = np.array([40.0, -40.0, 1.0])
-    out = gauss_tpu.fiqt(z)
+    out = gauss_jax.fiqt(z)
     assert out[0] == 40.0 and out[1] == -40.0
     # the small-z entry has max BH rank: adj == p, so z is unchanged
     assert out[2] == pytest.approx(1.0, rel=1e-12)

@@ -4,10 +4,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import gauss_tpu
-from gauss_tpu.config import PanelFiles
-from gauss_tpu.io import readers
-from gauss_tpu.models.genome import GenomeEngine, PanelStore
+import gauss_jax
+from gauss_jax.config import PanelFiles
+from gauss_jax.io import readers
+from gauss_jax.models.genome import GenomeEngine, PanelStore
 
 POP_WGT = pd.DataFrame({"pop": ["AAA", "CCC", "EEE"],
                         "wgt": [0.5, 0.3, 0.2]})
@@ -36,7 +36,7 @@ def test_engine_matches_percall_distmix(store, synpanel, gwas_input):
     p_hi = lo + 2 * (hi - lo) // 3
     wing = hi - lo
 
-    ref = gauss_tpu.distmix(22, p_lo, p_hi, wing, POP_WGT, path,
+    ref = gauss_jax.distmix(22, p_lo, p_hi, wing, POP_WGT, path,
                             synpanel.files.index_file,
                             synpanel.files.data_file,
                             synpanel.files.pop_desc_file, af1_cutoff=0.01)
@@ -93,14 +93,14 @@ def test_engine_region_tiling(store, synpanel, gwas_input):
 
 def test_engine_ld_window_matches_compute_ld(store, synpanel, gwas_input):
     """Device ld_window == host compute_ld (computeLD semantics)."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
 
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
     lo = int(bp.min())
     hi = lo + (int(bp.max()) - lo) // 2
 
-    host = gauss_tpu.compute_ld(
+    host = gauss_jax.compute_ld(
         22, lo, hi, POP_WGT, path,
         synpanel.files.index_file, synpanel.files.data_file,
         synpanel.files.pop_desc_file, af1_cutoff=0.01)
@@ -119,7 +119,7 @@ def test_engine_ld_window_matches_compute_ld(store, synpanel, gwas_input):
 
 def test_engine_qcat_region_matches_qcatmix(store, synpanel, gwas_input):
     """Device qcat_region == host qcatmix per window."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
 
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
@@ -128,7 +128,7 @@ def test_engine_qcat_region_matches_qcatmix(store, synpanel, gwas_input):
     p_hi = lo + 2 * (hi - lo) // 3
     wing = (hi - lo) // 3
 
-    host = gauss_tpu.qcatmix(22, p_lo, p_hi, wing, POP_WGT, path,
+    host = gauss_jax.qcatmix(22, p_lo, p_hi, wing, POP_WGT, path,
                              synpanel.files.index_file,
                              synpanel.files.data_file,
                              synpanel.files.pop_desc_file,
@@ -156,7 +156,7 @@ def test_region_determinism(store, synpanel, gwas_input):
     """Two identical region runs are byte-deterministic (the replacement
     for race detection in a single-process framework: no run-to-run
     nondeterminism from reductions or scheduling)."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
 
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
@@ -174,7 +174,7 @@ def test_region_determinism(store, synpanel, gwas_input):
 
 def test_engine_homog_matches_percall_dist(store, synpanel, gwas_input):
     """Unweighted (dist) engine path == per-call dist host results."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
 
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
@@ -183,7 +183,7 @@ def test_engine_homog_matches_percall_dist(store, synpanel, gwas_input):
     p_hi = lo + 2 * (hi - lo) // 3
     wing = hi - lo
 
-    ref = gauss_tpu.dist(22, p_lo, p_hi, wing, "EUR", path,
+    ref = gauss_jax.dist(22, p_lo, p_hi, wing, "EUR", path,
                          synpanel.files.index_file,
                          synpanel.files.data_file,
                          synpanel.files.pop_desc_file, af1_cutoff=0.01)
@@ -211,7 +211,7 @@ def test_engine_homog_matches_percall_dist(store, synpanel, gwas_input):
 
 @pytest.fixture(scope="module")
 def annot_file_g(synpanel, tmp_path_factory):
-    from gauss_tpu.utils import testing as gtest
+    from gauss_jax.utils import testing as gtest
     d = tmp_path_factory.mktemp("annot_g")
     path = str(d / "annot.txt")
     gtest.make_annotation(synpanel, path)
@@ -227,7 +227,7 @@ def test_engine_resident_jepeg_parity(store, synpanel, gwas_input,
     """PreparedGenes.jepeg_region (one panel decode, on-device gene
     gather) must reproduce the per-call host jepeg path exactly."""
     path, _ = gwas_input
-    host = gauss_tpu.jepeg("EUR", path, annot_file_g,
+    host = gauss_jax.jepeg("EUR", path, annot_file_g,
                            synpanel.files.index_file,
                            synpanel.files.data_file,
                            synpanel.files.pop_desc_file)
@@ -250,7 +250,7 @@ def test_engine_resident_jepegmix_parity_and_chunking(
         store, synpanel, gwas_input, annot_file_g):
     path, _ = gwas_input
     pop_wgt = {"AAA": 0.4, "BBB": 0.35, "EEE": 0.25}
-    host = gauss_tpu.jepegmix(
+    host = gauss_jax.jepegmix(
         pd.DataFrame({"pop": list(pop_wgt), "wgt": list(pop_wgt.values())}),
         path, annot_file_g, synpanel.files.index_file,
         synpanel.files.data_file, synpanel.files.pop_desc_file)
@@ -286,7 +286,7 @@ def test_engine_jepeg_on_mesh_matches_single_device(
     import jax
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from gauss_tpu.parallel.mesh import make_mesh
+    from gauss_jax.parallel.mesh import make_mesh
     path, _ = gwas_input
     inp = readers.read_input_z(path, all_snps=True)
     annot = readers.read_annotation(annot_file_g)
@@ -317,8 +317,8 @@ def test_ld_i16tri_fetch_bound(store, synpanel, gwas_input):
     """The packed int16-triangle LD fetch must match the full-f32 fetch
     within the documented quantization bound LD_I16_MAX_ERR, with an
     exactly-1.0 diagonal and exact symmetry."""
-    from gauss_tpu.io import readers
-    from gauss_tpu.ops.window_kernel import LD_I16_MAX_ERR
+    from gauss_jax.io import readers
+    from gauss_jax.ops.window_kernel import LD_I16_MAX_ERR
 
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
@@ -345,10 +345,10 @@ def test_ld_i16tri_fetch_bound(store, synpanel, gwas_input):
 
 def test_resident_region_matches_gather_region(store, synpanel, gwas_input):
     """The gather-free resident region kernel (bp-sorted panels +
-    Pallas block-offset streaming) must reproduce the gather-based
-    region scan.  Forced on for CPU via region_mode='resident'
-    (interpret-mode Pallas)."""
-    from gauss_tpu.io import readers
+    band-offset streaming) must reproduce the gather-based region
+    scan.  Forced on for CPU via region_mode='resident' (its Gram is
+    the XLA form there)."""
+    from gauss_jax.io import readers
 
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
@@ -382,14 +382,16 @@ def test_resident_region_matches_gather_region(store, synpanel, gwas_input):
     np.testing.assert_allclose(df_r["info"].to_numpy()[imp],
                                df_g["info"].to_numpy()[imp],
                                rtol=2e-4, atol=2e-5)
-    # kernel-only probe drives the same batch contract
-    sec, plans = run_r.region_kernel_seconds(lo, hi, **kw, repeats=1)
-    assert sec is not None and len(plans) >= 2
+    # the async handle replays the same cached batch
+    df_a = run_r.impute_region_async(lo, hi, **kw).result()
+    np.testing.assert_array_equal(df_a["z"].to_numpy(),
+                                  df_r["z"].to_numpy())
+    assert len(run_r._region_batch(lo, hi, **kw)[0]) >= 2
 
 
 def test_resident_qcat_matches_gather_qcat(store, synpanel, gwas_input):
     """Resident-streamed qcat_region == gather-based qcat_region."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
 
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
@@ -420,7 +422,7 @@ def test_resident_pooled_matches_gather(store, synpanel, gwas_input):
     the gather-based region paths.  'EUR' is a super-pop spanning two
     panel segments (AAA+BBB), so the single pooled accumulation group
     must also span the K_TILE zero padding between segments."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
 
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
@@ -477,7 +479,7 @@ def test_resident_region_boundary_fuzz(store, synpanel, gwas_input, cfg):
     """Resident == gather across window tilings that exercise the
     band-offset edges: first/last windows, clipped regions, windows
     skipped by the reference min-count rule."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
     wd, gd, so, eo = cfg
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
@@ -509,8 +511,8 @@ def test_resident_ld_region_matches_gather(store, synpanel, gwas_input):
     """One-dispatch resident LD region (build_resident_ld_kernel,
     band-streamed mm Gram, computeLD semantics src/computeLD.cpp:104-116)
     vs the gather-based per-window LD kernels, both fetch modes."""
-    from gauss_tpu.io import readers
-    from gauss_tpu.ops.window_kernel import LD_I16_MAX_ERR
+    from gauss_jax.io import readers
+    from gauss_jax.ops.window_kernel import LD_I16_MAX_ERR
 
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
@@ -540,7 +542,7 @@ def test_aligned_fallback_matches(store, synpanel, gwas_input, monkeypatch):
     """Very long regions fall back from the per-window aligned resident
     layout to the shared bp-sorted layout (GAUSS_ALIGNED_MAX_BYTES cap);
     both must impute identically up to f32 solve noise."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
     lo, hi = int(bp.min()), int(bp.max())
@@ -571,7 +573,7 @@ def test_impute_regions_pipelined_matches_sequential(store, synpanel,
     """The pipelined region generator (impute_regions, depth 2) yields
     exactly what sequential impute_region calls produce, in span
     order."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
     lo, hi = int(bp.min()), int(bp.max())
@@ -596,7 +598,7 @@ def test_aligned_batch_cache_evicts_older_spans(store, synpanel,
     """Aligned-layout batches carry dedicated device panels; only the
     newest span's batch may stay cached (HBM leak guard), while
     repeated calls on one span still hit the cache."""
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
     path, _ = gwas_input
     bp = synpanel.index_df["bp"]
     lo, hi = int(bp.min()), int(bp.max())

@@ -13,7 +13,7 @@ the reference's only regression oracles (SURVEY.md section 4):
 * afmix() weights == PGC2_SCZ_ANC_Prop     -- afmix_example.md
 
 Tolerance: the reference computes in float64 scalar loops; our host
-parity path is float64 with MXU-exact sufficient statistics, so z/info
+parity path is float64 with exact f32 sufficient statistics, so z/info
 agree to ~1e-6; AFs are deterministic rounding (ceil 1e5) and match
 exactly.
 """
@@ -23,8 +23,8 @@ import os
 import numpy as np
 import pytest
 
-import gauss_tpu
-from gauss_tpu.utils import goldens
+import gauss_jax
+from gauss_jax.utils import goldens
 
 PANEL = goldens.panel_dir()
 REF = goldens.reference_dir()
@@ -52,7 +52,7 @@ def _check_rows(res, gold, af_col):
 
 
 def test_dist_golden_head():
-    res = gauss_tpu.dist(
+    res = gauss_jax.dist(
         goldens.DIST_CALL["chrom"], goldens.DIST_CALL["start_bp"],
         goldens.DIST_CALL["end_bp"], goldens.DIST_CALL["wing_size"],
         goldens.DIST_CALL["study_pop"],
@@ -61,18 +61,18 @@ def test_dist_golden_head():
 
 
 def test_distmix_golden_head():
-    res = gauss_tpu.distmix(
+    res = gauss_jax.distmix(
         goldens.DISTMIX_CALL["chrom"], goldens.DISTMIX_CALL["start_bp"],
         goldens.DISTMIX_CALL["end_bp"], goldens.DISTMIX_CALL["wing_size"],
-        gauss_tpu.PGC2_SCZ_ANC_Prop,
+        gauss_jax.PGC2_SCZ_ANC_Prop,
         os.path.join(REF, goldens.PGC2_3MB), **_panel_files())
     _check_rows(res, goldens.DISTMIX_GOLD, "af1mix")
 
 
 def test_computeld_golden_corner():
-    res = gauss_tpu.compute_ld(
+    res = gauss_jax.compute_ld(
         goldens.COMPUTELD_CALL["chrom"], goldens.COMPUTELD_CALL["start_bp"],
-        goldens.COMPUTELD_CALL["end_bp"], gauss_tpu.PGC2_SCZ_ANC_Prop,
+        goldens.COMPUTELD_CALL["end_bp"], gauss_jax.PGC2_SCZ_ANC_Prop,
         os.path.join(REF, goldens.PGC2_3MB), **_panel_files(),
         af1_cutoff=goldens.COMPUTELD_CALL["af1_cutoff"])
     snplist, cormat = res["snplist"], res["cormat"]
@@ -84,7 +84,7 @@ def test_computeld_golden_corner():
 
 
 def test_afmix_golden_weights():
-    res = gauss_tpu.afmix(
+    res = gauss_jax.afmix(
         os.path.join(REF, goldens.PGC2_CHR22_AF), **_panel_files())
     got = dict(zip(res["pop"], res["wgt"]))
     for pop, wgt in goldens.AFMIX_GOLD.items():
@@ -123,15 +123,15 @@ def _annotation_path():
 
 
 def test_jepeg_golden():
-    res = gauss_tpu.jepeg(
+    res = gauss_jax.jepeg(
         "GBR", os.path.join(REF, goldens.PGC2_CHR22_Z),
         _annotation_path(), **_panel_files())
     _check_genes(res, goldens.JEPEG_GOLD)
 
 
 def test_jepegmix_golden():
-    res = gauss_tpu.jepegmix(
-        gauss_tpu.PGC2_SCZ_ANC_Prop,
+    res = gauss_jax.jepegmix(
+        gauss_jax.PGC2_SCZ_ANC_Prop,
         os.path.join(REF, goldens.PGC2_CHR22_Z),
         _annotation_path(), **_panel_files())
     _check_genes(res, goldens.JEPEGMIX_GOLD)

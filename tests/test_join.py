@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from gauss_tpu.core.variants import (DuplicateInputError,
+from gauss_jax.core.variants import (DuplicateInputError,
                                      join_reference_index, sort_map_order)
 
 

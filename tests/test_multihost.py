@@ -13,7 +13,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from gauss_tpu.parallel import distributed
+from gauss_jax.parallel import distributed
 
 
 def test_host_window_ranges_partition():
@@ -54,7 +54,7 @@ def test_two_process_cpu_matches_single(synpanel, gwas_input, tmp_path):
             "--reference-pop-desc-file", synpanel.files.pop_desc_file]
 
     # single-process reference, in-process (pytest is already on CPU)
-    from gauss_tpu import cli
+    from gauss_jax import cli
     ref_out = tmp_path / "ref.tsv"
     cli.main(base + ["--run-dir", str(tmp_path / "run1"),
                      "-o", str(ref_out)])
@@ -68,14 +68,14 @@ def test_two_process_cpu_matches_single(synpanel, gwas_input, tmp_path):
     for pid in range(2):
         env = dict(os.environ)
         env.update({
-            "GAUSS_TPU_PLATFORM": "cpu",
+            "JAX_PLATFORMS": "cpu",
             "XLA_FLAGS": "--xla_force_host_platform_device_count=1",
             "JAX_COORDINATOR_ADDRESS": f"localhost:{port}",
             "JAX_NUM_PROCESSES": "2",
             "JAX_PROCESS_ID": str(pid),
         })
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "gauss_tpu"] + base
+            [sys.executable, "-m", "gauss_jax"] + base
             + ["--multihost", "--run-dir", str(run_dir),
                "-o", str(mh_out)],
             env=env, cwd=os.path.dirname(os.path.dirname(

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from gauss_tpu.io.panel import PanelReader, read_panel_index
+from gauss_jax.io.panel import PanelReader, read_panel_index
 
 
 def test_index_roundtrip(synpanel):
@@ -52,7 +52,7 @@ def test_pop_wgt_unknown_names_ignored_with_warning(synpanel):
     default and raise only with strict=True."""
     import numpy as np
     import pytest
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
     desc = synpanel.desc
     wmap = {desc.pops[0]: 0.6, desc.pops[1]: 0.4, "NOSUCHPOP": 0.1}
     with pytest.warns(RuntimeWarning, match="NOSUCHPOP"):
@@ -70,7 +70,7 @@ def test_annotation_unknown_category_skipped(tmp_path):
     of reproducing the reference's keep-previous-categ uninitialized
     read (src/gauss.cpp:1319-1330) or crashing downstream."""
     import pytest
-    from gauss_tpu.io import readers
+    from gauss_jax.io import readers
     path = tmp_path / "annot.txt"
     path.write_text(
         "rsid chr bp a1 a2 geneid categ wgt\n"

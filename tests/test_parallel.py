@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 import jax
 
-import gauss_tpu  # noqa: F401
-from gauss_tpu.ops.window_kernel import (WindowKernelSpec,
+import gauss_jax  # noqa: F401
+from gauss_jax.ops.window_kernel import (WindowKernelSpec,
                                          build_window_kernel,
                                          pad_pop_segments)
-from gauss_tpu.parallel.mesh import (make_mesh, sharded_window_impute,
+from gauss_jax.parallel.mesh import (make_mesh, sharded_window_impute,
                                      subject_shard_layout)
 
 import oracle
@@ -122,8 +122,8 @@ def test_graft_entry_dryrun():
 def test_engine_mesh_impute_matches_single_device(synpanel, gwas_input):
     """PRODUCTION mesh path: GenomeEngine.impute_region over a (2 x 4)
     mesh == the 1-device engine at real bucketed shapes (Mp=256)."""
-    from gauss_tpu.io import readers
-    from gauss_tpu.models.genome import GenomeEngine, PanelStore
+    from gauss_jax.io import readers
+    from gauss_jax.models.genome import GenomeEngine, PanelStore
 
     path, _ = gwas_input
     lo, hi = 1_000_000, 1_299_000
@@ -148,8 +148,8 @@ def test_engine_mesh_impute_matches_single_device(synpanel, gwas_input):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_engine_mesh_qcat_and_ld_match_single_device(synpanel, gwas_input):
-    from gauss_tpu.io import readers
-    from gauss_tpu.models.genome import GenomeEngine, PanelStore
+    from gauss_jax.io import readers
+    from gauss_jax.models.genome import GenomeEngine, PanelStore
 
     path, _ = gwas_input
     lo, hi = 1_000_000, 1_299_000
@@ -188,8 +188,8 @@ def test_engine_mesh_qcat_and_ld_match_single_device(synpanel, gwas_input):
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_sharded_region_matches_single_device():
     """Whole-region scan over a (window x subject) mesh == 1-device scan."""
-    from gauss_tpu.ops.window_kernel import build_region_kernel
-    from gauss_tpu.parallel.mesh import sharded_region_impute
+    from gauss_jax.ops.window_kernel import build_region_kernel
+    from gauss_jax.parallel.mesh import sharded_region_impute
 
     n_win, n_sub = 2, 4
     mesh = make_mesh(n_win, n_sub)
@@ -221,19 +221,3 @@ def test_sharded_region_matches_single_device():
     np.testing.assert_allclose(np.asarray(info)[real],
                                np.asarray(info1)[real],
                                rtol=5e-4, atol=5e-5)
-
-
-def test_dma_gather_rows_fallback_and_shapes():
-    """take_rows == jnp.take on the CPU fallback, any idx shape,
-    including non-multiple-of-ROWS_PER_STEP lengths."""
-    import jax.numpy as jnp
-    from gauss_tpu.ops.dma_gather import gather_rows, take_rows
-    rng = np.random.default_rng(1)
-    G = rng.integers(0, 3, size=(100, 16), dtype=np.int8)
-    Gd = jnp.asarray(G)
-    idx = rng.integers(0, 100, size=(3, 5, 7)).astype(np.int32)
-    out = np.asarray(take_rows(Gd, jnp.asarray(idx)))
-    np.testing.assert_array_equal(out, G[idx])
-    flat = rng.integers(0, 100, size=(37,)).astype(np.int32)
-    np.testing.assert_array_equal(np.asarray(gather_rows(Gd, jnp.asarray(flat))),
-                                  G[flat])

@@ -4,11 +4,11 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import gauss_tpu
-from gauss_tpu.config import PanelFiles
-from gauss_tpu.io import readers
-from gauss_tpu.models import pipeline
-from gauss_tpu.utils import testing as gtest
+import gauss_jax
+from gauss_jax.config import PanelFiles
+from gauss_jax.io import readers
+from gauss_jax.models import pipeline
+from gauss_jax.utils import testing as gtest
 
 import oracle
 
@@ -36,7 +36,7 @@ def test_qcat_matches_oracle(synpanel, gwas_input, region):
     p_lo = lo + (hi - lo) // 3
     p_hi = lo + 2 * (hi - lo) // 3
     wing = hi - lo
-    res = gauss_tpu.qcat(22, p_lo, p_hi, wing, "EUR", path,
+    res = gauss_jax.qcat(22, p_lo, p_hi, wing, "EUR", path,
                          synpanel.files.index_file, synpanel.files.data_file,
                          synpanel.files.pop_desc_file)
     assert {"qcat_m", "qcat_t", "qcat_chisq", "qcat_pval"} <= set(res.columns)
@@ -79,7 +79,7 @@ def test_qcatmix_runs(synpanel, gwas_input, region):
     lo, hi = region
     p_lo = lo + (hi - lo) // 3
     p_hi = lo + 2 * (hi - lo) // 3
-    res = gauss_tpu.qcatmix(22, p_lo, p_hi, hi - lo, POP_WGT, path,
+    res = gauss_jax.qcatmix(22, p_lo, p_hi, hi - lo, POP_WGT, path,
                             synpanel.files.index_file,
                             synpanel.files.data_file,
                             synpanel.files.pop_desc_file)
@@ -94,7 +94,7 @@ def test_prep_qcat_structure(synpanel, gwas_input, region):
     lo, hi = region
     p_lo = lo + (hi - lo) // 3
     p_hi = lo + 2 * (hi - lo) // 3
-    out = gauss_tpu.prep_qcat(22, p_lo, p_hi, hi - lo, "EUR", path,
+    out = gauss_jax.prep_qcat(22, p_lo, p_hi, hi - lo, "EUR", path,
                               synpanel.files.index_file,
                               synpanel.files.data_file,
                               synpanel.files.pop_desc_file)
@@ -114,7 +114,7 @@ def test_prep_recessive_impute(synpanel, gwas_input, region):
     lo, hi = region
     p_lo = lo + (hi - lo) // 3
     p_hi = lo + 2 * (hi - lo) // 3
-    out = gauss_tpu.prep_recessive_impute(
+    out = gauss_jax.prep_recessive_impute(
         22, p_lo, p_hi, hi - lo, POP_WGT, path,
         synpanel.files.index_file, synpanel.files.data_file,
         synpanel.files.pop_desc_file)
@@ -134,7 +134,7 @@ def test_prep_recessive_impute(synpanel, gwas_input, region):
 
 def test_jepeg_matches_oracle(synpanel, gwas_input, annot_file):
     path, truth = gwas_input
-    res = gauss_tpu.jepeg("EUR", path, annot_file,
+    res = gauss_jax.jepeg("EUR", path, annot_file,
                           synpanel.files.index_file,
                           synpanel.files.data_file,
                           synpanel.files.pop_desc_file)
@@ -150,8 +150,8 @@ def test_jepeg_matches_oracle(synpanel, gwas_input, annot_file):
     # oracle re-check of each tested gene, rebuilt from fixture data
     panel = PanelFiles(synpanel.files.index_file, synpanel.files.data_file,
                        synpanel.files.pop_desc_file)
-    from gauss_tpu.core import variants
-    from gauss_tpu.io.panel import PanelReader, read_panel_index
+    from gauss_jax.core import variants
+    from gauss_jax.io.panel import PanelReader, read_panel_index
     inp = readers.read_input_z(path, all_snps=True)
     idx = read_panel_index(panel.index_file)
     table = variants.join_reference_index(inp, idx, add_unmeasured=False,
@@ -199,7 +199,7 @@ def test_jepeg_matches_oracle(synpanel, gwas_input, annot_file):
 
 def test_jepegmix_runs(synpanel, gwas_input, annot_file):
     path, _ = gwas_input
-    res = gauss_tpu.jepegmix(POP_WGT, path, annot_file,
+    res = gauss_jax.jepegmix(POP_WGT, path, annot_file,
                              synpanel.files.index_file,
                              synpanel.files.data_file,
                              synpanel.files.pop_desc_file)
@@ -217,7 +217,7 @@ def test_gene_stats_resident_pad_row_nan_safe():
     Real-SNP NaNs still propagate (reference divides by zero,
     src/util.cpp:63-69)."""
     import jax.numpy as jnp
-    from gauss_tpu.core import genekernels
+    from gauss_jax.core import genekernels
 
     rng = np.random.default_rng(7)
     S = 40
@@ -252,7 +252,7 @@ def test_gene_batching_admits_oversized_gene():
     admitted (alone) rather than spinning the batching loop forever
     (regression: round-3 advisor finding)."""
     import jax.numpy as jnp
-    from gauss_tpu.core import genekernels
+    from gauss_jax.core import genekernels
 
     rng = np.random.default_rng(3)
     S = 64

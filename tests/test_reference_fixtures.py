@@ -12,9 +12,9 @@ import os
 import numpy as np
 import pytest
 
-import gauss_tpu
-from gauss_tpu.io import readers
-from gauss_tpu.utils import goldens
+import gauss_jax
+from gauss_jax.io import readers
+from gauss_jax.utils import goldens
 
 REF = goldens.reference_dir()
 pytestmark = pytest.mark.skipif(REF is None,
@@ -60,7 +60,7 @@ def test_fiqt_on_real_pgc2_z():
     df = readers.read_input_z(os.path.join(REF, goldens.PGC2_CHR22_Z),
                               all_snps=True)
     z = df["z"].to_numpy()
-    z_adj = np.asarray(gauss_tpu.fiqt(z))
+    z_adj = np.asarray(gauss_jax.fiqt(z))
     assert z_adj.shape == z.shape
     assert np.all(np.abs(z_adj) <= np.abs(z) + 1e-12)
     # sign preserved except where BH-adjusted p hits 1 -> z_adj == 0
@@ -71,7 +71,7 @@ def test_fiqt_on_real_pgc2_z():
 def test_bundled_anc_prop_matches_afmix_golden():
     """Our bundled PGC2_SCZ_ANC_Prop equals the published afmix result
     table (docs/articles/afmix_example.md)."""
-    df = gauss_tpu.PGC2_SCZ_ANC_Prop
+    df = gauss_jax.PGC2_SCZ_ANC_Prop
     assert len(df) == 21
     got = dict(zip(df["pop"], df["wgt"]))
     assert got == goldens.AFMIX_GOLD

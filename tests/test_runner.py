@@ -7,11 +7,11 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from gauss_tpu.config import PanelFiles
-from gauss_tpu.io import readers
-from gauss_tpu.models.genome import GenomeEngine, PanelStore
-from gauss_tpu.models.runner import GenomeRunner
-from gauss_tpu.utils.testing import make_gwas_input, make_synthetic_panel
+from gauss_jax.config import PanelFiles
+from gauss_jax.io import readers
+from gauss_jax.models.genome import GenomeEngine, PanelStore
+from gauss_jax.models.runner import GenomeRunner
+from gauss_jax.utils.testing import make_gwas_input, make_synthetic_panel
 
 
 @pytest.fixture(scope="module")
@@ -161,7 +161,7 @@ def test_runner_on_mesh_matches_single_device(tmp_path, setup):
     import jax
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from gauss_tpu.parallel.mesh import make_mesh
+    from gauss_jax.parallel.mesh import make_mesh
 
     store, inp, pop_wgt = setup[:3]
     eng_m = GenomeEngine(store, snp_bucket=64, mesh=make_mesh(2, 4))
@@ -261,7 +261,7 @@ def test_ld_analysis_runner(tmp_path, setup):
 def test_jepeg_analysis_runner(tmp_path, setup, tmp_path_factory):
     """analysis='jepeg' partitions genes across chunks; union equals the
     unchunked engine-resident run."""
-    from gauss_tpu.utils.testing import make_annotation
+    from gauss_jax.utils.testing import make_annotation
     store, inp, pop_wgt, files = setup
 
     class _P:  # make_annotation wants .index_df
@@ -309,7 +309,7 @@ def test_streaming_prefetch_overlaps_decode(tmp_path, setup):
     chunks' decode_chunk phases as prefetched (already-resolved
     futures) and the results must be identical to the non-prefetched
     path (covered by test_streaming_matches_resident)."""
-    from gauss_tpu.utils.timing import Tracer
+    from gauss_jax.utils.timing import Tracer
     _, inp, pop_wgt, panel_files = setup[:4]
     tr = Tracer()
     eng = GenomeEngine(None, snp_bucket=64, device_linalg=True)
@@ -331,9 +331,9 @@ def test_jepeg_runner_on_mesh(tmp_path, setup, synpanel):
     import jax
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from gauss_tpu.io import readers
-    from gauss_tpu.parallel.mesh import make_mesh
-    from gauss_tpu.utils import testing as gtest
+    from gauss_jax.io import readers
+    from gauss_jax.parallel.mesh import make_mesh
+    from gauss_jax.utils import testing as gtest
     store, inp, pop_wgt = setup[:3]
     annot_path = tmp_path / "annot.txt"
     gtest.make_annotation(synpanel, str(annot_path))

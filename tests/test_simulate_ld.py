@@ -2,7 +2,7 @@
 
 Seed-pinned: the reference seeds std::mt19937 from std::random_device
 (src/simulateLD.cpp:134-138) so bit-level parity with the reference
-binary is impossible; instead these tests pin gauss_tpu's documented
+binary is impossible; instead these tests pin gauss_jax's documented
 sampling contract and check the correlation math against an
 independent numpy Pearson oracle on the reconstructed draw.
 """
@@ -11,10 +11,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import gauss_tpu
-from gauss_tpu import cli
-from gauss_tpu.io import readers
-from gauss_tpu.models.ld import compute_ld, simulate_ld
+import gauss_jax
+from gauss_jax import cli
+from gauss_jax.io import readers
+from gauss_jax.models.ld import compute_ld, simulate_ld
 
 POP_WGT = pd.DataFrame({"pop": ["AAA", "CCC", "EEE"],
                         "wgt": [0.37, 0.402, 0.228]})

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gauss_tpu.core import ldkernels
+from gauss_jax.core import ldkernels
 
 import oracle
 
